@@ -1,10 +1,10 @@
-"""stereo_tpu — TPU-native real-time stereo-depth engine.
+"""stereo_tpu — real-time stereo-depth engine in JAX, run on NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of the
 OpenCL C++ reference Batshaw/Real-Time-Stereo-Matching- (see SURVEY.md):
 census/SAD matching cost -> H x W x D cost volume -> 4/8-path SGM
 aggregation -> fused WTA + subpixel -> LR consistency -> median filter,
-scaled over TPU meshes via shard_map tiling with halo exchange.
+scaled over device meshes via shard_map tiling with halo exchange.
 """
 
 from .config import (

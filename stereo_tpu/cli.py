@@ -149,8 +149,8 @@ def cmd_run(args) -> int:
         res = fn(pair.left, pair.right)
         jax.block_until_ready(res.disp)
         compile_s = time.perf_counter() - t0
-        # Chained timing: block_until_ready alone under-reports on remote
-        # backends (utils/timing.py).
+        # Chained timing: the device's steady-state time per frame
+        # (utils/timing.py).
         from .utils.timing import chained_seconds_per_call
 
         steady = chained_seconds_per_call(
@@ -467,9 +467,11 @@ def main(argv=None) -> int:
 
     ap.add_argument("--log", default=None, help="log level (DEBUG/INFO/...)")
     args, _ = ap.parse_known_args(argv)
+    from .utils.compile_cache import enable_compile_cache
     from .utils.log import setup
 
     setup(args.log)
+    enable_compile_cache()
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -6,7 +6,7 @@ reconstructed from BASELINE.json) configures its pipeline through CLI args and
 compile-time ``#define``s (window size, disparity range, P1/P2), requiring a
 rebuild per configuration (SURVEY.md §5 "Config / flag system").
 
-The TPU-native equivalent is a frozen, hashable dataclass that is **static
+The equivalent here is a frozen, hashable dataclass that is **static
 under jit**: every field participates in the jit cache key, so each config
 compiles to its own specialized XLA program — the same effect as the
 reference's compile-time defines, without the manual rebuild.
@@ -78,10 +78,13 @@ class StereoConfig:
 
     # --- numerics ----------------------------------------------------------
     cost_dtype: str = "int32"          # golden-path cost dtype
-    backend: str = "auto"              # "auto" | "jnp" | "pallas" |
-    #                                    "pallas_interpret" (kernels in
-    #                                    interpreter mode — CPU CI of the
-    #                                    Pallas paths)
+    backend: str = "auto"              # SGM implementation: "auto" (the
+    #                                    Triton kernel on the GPU for
+    #                                    unmasked calls, else the golden
+    #                                    scan) | "jnp" (golden) | "pallas"
+    #                                    (kernel, GPU only) |
+    #                                    "pallas_interpret" (kernel in the
+    #                                    Pallas interpreter — CPU tests)
 
     def __post_init__(self) -> None:
         if self.cost_fn not in ("census", "sad", "rank"):
@@ -90,6 +93,11 @@ class StereoConfig:
             )
         if self.num_paths not in (0, 4, 8):
             raise ValueError(f"num_paths must be 0|4|8, got {self.num_paths}")
+        if self.backend not in ("auto", "jnp", "pallas", "pallas_interpret"):
+            raise ValueError(
+                "backend must be auto|jnp|pallas|pallas_interpret, got "
+                f"{self.backend}"
+            )
         if self.num_disparities < 1:
             raise ValueError("num_disparities must be >= 1")
         cw = self.census_window
@@ -171,7 +179,7 @@ class TileConfig:
 # ---------------------------------------------------------------------------
 # Named presets matching BASELINE.json:6-12 exactly (SURVEY.md §5).
 #
-# The SGM penalty/gate knobs are TUNED (round 4, VERDICT r3 #1): staged
+# The SGM penalty/gate knobs are TUNED (round 4): staged
 # sweeps over the hard adversarial suite (eval/tuning.py; CI scale ->
 # D=64 mid scale -> D=128 bench scale; full methodology + tables in
 # docs/tuning.md). vs the untuned r3 values (p1=10, p2=120, 5x5 census,
@@ -212,7 +220,7 @@ MIDDLEBURY_CENSUS_SGM4_64 = StereoConfig(
 #: (9, 7) census rides the same 2-word kernel as (7, 7) but measured
 #: better on noise/periodic content; uniqueness + speckle are the
 #: near-free ambiguity gates (uniqueness is fused in-kernel, speckle is
-#: host-side C++). Speckle ships RESOLUTION-RELATIVE (VERDICT r4 #1):
+#: host-side C++). Speckle ships RESOLUTION-RELATIVE:
 #: the round-4 sweeps landed on 80 px at the 160x288 suite scale, and
 #: blob areas scale with H*W — an absolute 80 under-removes 10x at
 #: full KITTI res (docs/tuning.md). speckle_rel keeps the tuned
@@ -234,8 +242,7 @@ KITTI_SGM8_128 = StereoConfig(
 #: gradient floor. Clears every hard-suite bar incl. thin structures
 #: (the one scenario fixed P2 cannot fix: the smoothness prior erases
 #: 2-4 px bars; adaptive P2 relaxes it exactly at intensity edges).
-#: Costs ~1/3 of the headline fps (the adaptive kernels' measured tax,
-#: docs/kernels.md).
+#: Its time per frame is in PERF.md.
 KITTI_SGM8_128_QUALITY = KITTI_SGM8_128.replace(
     adaptive_p2=True, adaptive_grad_floor=12, p2_min=30
 )

@@ -14,8 +14,8 @@ left image corresponds to (y, x - d) in the right image. Occluded pixels
 (where the mapping is not injective) are flagged in the occlusion mask.
 
 Besides the clean scenes, this module generates ADVERSARIAL conditions
-(VERDICT r2 #1: easy warped pairs near-trivially favor census matching and
-cannot support the ≤4% bad-3.0 claim). The hard knobs model the failure
+(easy warped pairs near-trivially favor census matching and cannot
+support the ≤4% bad-3.0 claim). The hard knobs model the failure
 modes real rigs hit:
 
   * per-view radiometric distortion (``gain``/``bias``/``gamma`` applied to

@@ -1,4 +1,4 @@
-"""Hard synthetic evaluation suite (VERDICT r2 #1).
+"""Hard synthetic evaluation suite.
 
 Real KITTI/Middlebury imagery cannot be fetched in this environment
 (SURVEY.md §0: zero egress), and the clean warped pairs in data/synthetic.py
@@ -55,8 +55,7 @@ SCENARIOS: Dict[str, dict] = {
     # 0.5 px vertical rectification error
     "jitter": dict(kind="shapes", texture="cloud", y_jitter=0.5, noise_std=2.0),
     # repetitive texture (picket fence): cost minima at every stripe-period
-    # alias — the failure mode the uniqueness gate exists for (VERDICT r3
-    # #8). period 8 < every suite search range, so in-range aliases exist
+    # alias — the failure mode the uniqueness gate exists for. Period 8 < every suite search range, so in-range aliases exist
     # from the D=16 CI scale up.
     "periodic": dict(
         kind="shapes", texture="picket", period=8, noise_std=6.0

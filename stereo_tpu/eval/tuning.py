@@ -1,4 +1,4 @@
-"""Quality-tuning sweep harness (VERDICT r3 #1).
+"""Quality-tuning sweep harness.
 
 The reference family exposes its SGM knobs (P1/P2, window, uniqueness,
 speckle — SURVEY.md §2.3 I3) but the presets here shipped untuned: every
@@ -15,7 +15,7 @@ bench_results/tuning*.jsonl and docs/tuning.md):
      (`stage_sweep`) — p1/p2 grid first, then uniqueness/speckle/window
      on the survivors;
   2. a mid-scale CPU re-rank of the top candidates;
-  3. a TPU confirmation run of the final candidate at bench scale
+  3. a confirmation run of the final candidate at bench scale
      (cli eval --hard-suite / bench.py --all).
 
 Scoring: mean over scenarios of (bad3 + density shortfall below a floor),

@@ -7,15 +7,15 @@ upsampled coarse estimate — total work ~(1/8 + R/D) of the classic
 pipeline for a residual range R << D (hierarchical MGM/SGM literature,
 PAPERS.md pattern).
 
-TPU mapping:
+Mapping:
   * coarse pass: the ordinary pipeline on 2x2-mean-pooled images with D/2
-    disparities (Pallas fast path applies);
+    disparities (the SGM kernel applies on the GPU);
   * residual pass: census descriptors of BOTH images are computed in
     their own frames (no window distortion), then the right descriptors
     are gathered at x - base(x) - o for offsets o in [-R/2, R/2) — R
     cheap [H, W] gathers instead of a volume gather; the residual volume
-    is aggregated by the same SGM ops with min_disparity = -R/2 and the
-    final disparity is base + residual.
+    is aggregated by the same SGM dispatch with min_disparity = -R/2 and
+    the final disparity is base + residual.
 
 Accuracy: exact where the true disparity lies within R/2 of the coarse
 estimate. Two known artifact sources (quantified in eval/benchmarks, a
@@ -32,9 +32,9 @@ import jax
 import jax.numpy as jnp
 
 from ..config import KITTI_SGM8_128, StereoConfig
-from ..ops import census_transform, hamming_distance, median_3x3, sgm_aggregate
+from ..ops import census_transform, hamming_distance, median_3x3
 from ..ops.wta import wta_with_aux
-from ..pipeline.pipeline import StereoResult, compute_disparity
+from ..pipeline.pipeline import StereoResult, aggregate, compute_disparity
 from .base import StereoModel
 
 
@@ -74,105 +74,28 @@ def _local_minmax_center(base: jnp.ndarray, k: int = 5) -> jnp.ndarray:
     return jnp.round((mn + mx) * 0.5)
 
 
-#: Cap on the materialized one-hot select operand of the MXU residual
-#: gather (per lax.map band). 512 MB keeps KITTI-width frames in ~3 bands
-#: and Middlebury full-res bounded (vs ~23 GB unbanded — ADVICE r1).
-_ONEHOT_BUDGET_BYTES = 512 * (1 << 20)
-
-
 def _residual_cost_volume(
     cl: jnp.ndarray,
     cr: jnp.ndarray,
     base_i: jnp.ndarray,
     half: int,
     r: int,
-    use_mxu: bool,
 ) -> jnp.ndarray:
     """vol[y, x, o] = hamming(cl[y, x], cr[y, clip(x - base - (o - half))]).
 
-    Two equivalent constructions (bit-exact, tests/models):
-
-    * gather: r take_along_axis gathers — fine on CPU, catastrophic on TPU
-      (per-pixel dynamic indices serialize onto the scalar core; measured
-      ~100 ms of the pyramid model's 120 ms frame at KITTI scale).
-    * mxu: express the gather as a one-hot bf16 matmul per row. The right
-      descriptors are split into 8-bit chunks (exact in bf16; a one-hot
-      operand means each output is a single product, never a sum) and all
-      r offsets share one index array: M[y, j, (o, chunk)] holds STATIC
-      shifts of the chunked descriptors, so one batched
-      [W, Wp] @ [Wp, r*chunks] matmul per row gathers every offset — the
-      MXU does in ~2 ms what the scalar core did in ~100 ms.
-
-    Clip semantics match the gather formulation everywhere the entry is
-    not masked afterwards: indices that clip at either frame edge imply a
-    total disparity outside [0, D) or x - d < 0, which the caller
-    overwrites with max_unary_cost (see PyramidSGM._forward).
-
-    Requires base_i >= 0 (guaranteed by the caller's clamp): the one-hot
-    index pad covers x - base + half only up to w - 1 + half.
+    One [H, W] ``take_along_axis`` gather per offset o. Indices that clip at
+    either frame edge imply a total disparity outside [0, D) or x - d < 0,
+    which the caller overwrites with max_unary_cost (PyramidSGM._forward).
     """
-    h, w = base_i.shape
-    words = cl.shape[2]
+    w = base_i.shape[1]
     xs = jnp.arange(w)[None, :]
 
-    if not use_mxu:
-        def plane(o):
-            src = jnp.clip(xs - base_i - (o - half), 0, w - 1)
-            cr_s = jnp.take_along_axis(cr, src[:, :, None], axis=1)
-            return hamming_distance(cl, cr_s)
+    def plane(o):
+        src = jnp.clip(xs - base_i - (o - half), 0, w - 1)
+        cr_s = jnp.take_along_axis(cr, src[:, :, None], axis=1)
+        return hamming_distance(cl, cr_s)
 
-        return jax.vmap(plane, out_axes=2)(jnp.arange(r))      # [H, W, R]
-
-    nch = 4 * words                                   # 8-bit chunks
-    wp = w + half                                     # j = x - base + half
-    wpp = -(-wp // 128) * 128                         # MXU lane padding
-    # M[y, j, o, word, chunk] = chunk(cr[y, clip(j - o, 0, w - 1)]) via
-    # static shifts of an edge-padded copy (left pad r-1 covers j - o < 0).
-    cr_pad = jnp.pad(cr, ((0, 0), (r - 1, half), (0, 0)), mode="edge")
-    m = jnp.stack(
-        [cr_pad[:, r - 1 - o : r - 1 - o + wp] for o in range(r)], axis=2
-    )                                                 # [H, Wp, R, words]
-    shifts = (8 * jnp.arange(4, dtype=jnp.uint32))[None, None, None, None]
-    m_c = (m[..., None] >> shifts) & jnp.uint32(0xFF)
-    m_f = (
-        m_c.astype(jnp.bfloat16)
-        .reshape(h, wp, r * nch)
-    )
-    m_f = jnp.pad(m_f, ((0, 0), (0, wpp - wp), (0, 0)))
-    j = jnp.clip(xs - base_i + half, 0, wp - 1)       # [H, W]
-
-    # The one-hot operand is [bh, W, Wpp] bf16 — ~2*W^2 bytes per row, so a
-    # whole-frame build is ~1.2 GB at KITTI width but ~23 GB at Middlebury
-    # full-res (ADVICE r1). Band the rows with lax.map so the operand stays
-    # under a fixed budget; MXU work is identical, only the fan-out of the
-    # materialized select matrix is bounded.
-    bh = max(1, min(h, _ONEHOT_BUDGET_BYTES // (w * wpp * 2)))
-    nb = -(-h // bh)
-    hb = nb * bh
-    j_b = jnp.pad(j, ((0, hb - h), (0, 0))).reshape(nb, bh, w)
-    m_b = jnp.pad(m_f, ((0, hb - h), (0, 0), (0, 0))).reshape(
-        nb, bh, wpp, r * nch
-    )
-
-    def _band(args):
-        j_i, m_i = args
-        onehot = (
-            j_i[:, :, None] == jnp.arange(wpp)[None, None, :]
-        ).astype(jnp.bfloat16)
-        return jnp.einsum(
-            "hxj,hjc->hxc", onehot, m_i,
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)                           # exact: one-hot select
-
-    g = jax.lax.map(_band, (j_b, m_b)).reshape(hb, w, r * nch)[:h]
-    g = g.reshape(h, w, r, words, 4)
-    cl_c = (
-        cl[:, :, None, :, None] >> (8 * jnp.arange(4, dtype=jnp.uint32))
-    ) & jnp.uint32(0xFF)                              # [H, W, 1, words, 4]
-    ham = jax.lax.population_count(
-        jnp.bitwise_xor(g.astype(jnp.uint32), cl_c)
-    ).astype(jnp.int32)
-    return ham.sum(axis=(3, 4))                       # [H, W, R]
+    return jax.vmap(plane, out_axes=2)(jnp.arange(r))      # [H, W, R]
 
 
 class PyramidSGM(StereoModel):
@@ -185,11 +108,11 @@ class PyramidSGM(StereoModel):
         census_window=None,
     ):
         """``census_window``: None (default) inherits ``cfg``'s window —
-        an explicitly passed config is never silently overridden
-        (ADVICE r4). Speed-trade callers opt into the 1-word ``(5, 5)``
+        an explicitly passed config is never silently overridden.
+        Speed-trade callers opt into the 1-word ``(5, 5)``
         descriptor explicitly (bench.py's pyramid row does): the tuned
         presets' 2-word 9x7 census roughly doubles both the coarse cost
-        pass and the residual MXU gather (nch chunks scale with words),
+        pass and the residual gather (Hamming words scale with bits),
         while the pyramid's quality is dominated by its own
         approximation artifacts, not descriptor bits."""
         super().__init__(cfg)
@@ -225,8 +148,7 @@ class PyramidSGM(StereoModel):
         # of _residual_cost_volume.
         base = jnp.clip(base, 0, cfg.num_disparities - 1)
         base_i = jnp.round(base).astype(jnp.int32)
-        use_mxu = cfg.backend != "jnp" and jax.default_backend() == "tpu"
-        vol = _residual_cost_volume(cl, cr, base_i, half, r, use_mxu)
+        vol = _residual_cost_volume(cl, cr, base_i, half, r)
         # invalid where the total disparity leaves the image or the search
         # range of the classic model
         total = base[:, :, None] + (
@@ -244,20 +166,9 @@ class PyramidSGM(StereoModel):
         res_cfg = cfg.replace(
             num_disparities=r, min_disparity=-half, lr_check=False
         )
-        # Residual aggregation is plain SGM over an [H, W, R] volume — the
-        # Pallas blocked-pass kernel applies directly (bit-exact vs the
-        # golden scan; no disparity framing is involved at this stage).
-        from ..pipeline.pipeline import _pallas_mode
-
-        mode = _pallas_mode(res_cfg, None, None)
-        if mode is not None:
-            from ..ops.pallas.sgm_kernel import sgm_aggregate_pallas
-
-            s = sgm_aggregate_pallas(
-                vol.astype(jnp.int16), res_cfg, interpret=mode, image=left
-            ).astype(jnp.float32)
-        else:
-            s = sgm_aggregate(vol, res_cfg, image=left)
+        # Residual aggregation is plain SGM over an [H, W, R] volume: the
+        # pipeline's dispatch sends it to the SGM kernel on the GPU.
+        s = aggregate(vol, res_cfg, image=left)
         disp_r, ok, _ = wta_with_aux(s, res_cfg)
         disp = base + disp_r
         ok = ok & (disp >= 0) & (disp <= cfg.num_disparities - 1)

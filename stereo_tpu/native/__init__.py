@@ -1,7 +1,7 @@
 """Native (C++) host components, loaded via ctypes.
 
 The reference keeps its runtime and post-filters in C++ (SURVEY.md §1.1);
-on TPU the compute path is XLA/Pallas, and the native layer covers the
+on the device the compute path is XLA/Pallas, and the native layer covers the
 host-side pieces that map poorly onto the compiler: the irregular
 union-find speckle filter, the occlusion fill, and fast PNM/PFM dataset
 IO. Built on demand with g++ (cached next to the sources); every caller

@@ -1,7 +1,7 @@
 // Fast PGM/PPM (binary P5/P6) and PFM readers/writers with a C ABI.
 //
 // The reference's C++ host loads rectified pairs with stb_image/OpenCV
-// (SURVEY.md §2.1 C1); this is the TPU framework's native loader for the
+// (SURVEY.md §2.1 C1); this is the framework's native loader for the
 // formats Middlebury ships, used by the Python data layer via ctypes with
 // a pure-Python fallback (data/middlebury.py). Grayscale conversion for
 // P6 uses BT.601 integer luma, matching PIL's convert("L").

@@ -1,8 +1,8 @@
-"""Stereo ops: golden jnp implementations + Pallas TPU kernels.
+"""Stereo ops: golden jnp implementations + the SGM GPU kernel.
 
 Each op has a pure-jnp reference implementation (the oracle, SURVEY.md §2.3
-I6) and, for the hot path, a Pallas TPU kernel with the same signature under
-``stereo_tpu.ops.pallas``. Backend dispatch happens in the pipeline layer.
+I6). SGM aggregation, the hot path, also has a Triton kernel for the GPU
+under ``stereo_tpu.ops.pallas``; the pipeline layer picks between them.
 """
 
 from .census import census_transform, hamming_distance

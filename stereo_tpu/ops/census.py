@@ -4,11 +4,10 @@ Reference behavior (reconstructed, SURVEY.md §2.1 C2): per-pixel window
 compared against the center pixel, packed into a bitstring descriptor —
 robust to radiometric differences between the two cameras.
 
-TPU-native design: the window comparison unrolls into a static Python loop
-over offsets (the window is a static config), each offset a cheap shifted
-compare on the VPU; bits pack into one or two uint32 words. XLA fuses the
-whole transform into a handful of elementwise ops. The Pallas fused variant
-lives in ops/pallas/cost_kernel.py with this function as its oracle.
+Design: the window comparison unrolls into a static Python loop over
+offsets (the window is a static config), each offset a cheap shifted
+compare; bits pack into one or two uint32 words. XLA fuses the whole
+transform into a handful of elementwise ops.
 """
 
 from __future__ import annotations

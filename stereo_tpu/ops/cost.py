@@ -4,10 +4,10 @@ Reference behavior (SURVEY.md §2.1 C3-C5): SAD block matching or
 census-Hamming matching cost, materialized as the H x W x D cost volume —
 "the central tensor" (BASELINE.json:5).
 
-TPU-native design notes:
-  * Layout is [H, W, D] with D innermost: D in {16,64,128,256} maps onto the
-    128-wide lane dimension, and both SGM pass families (row scans and column
-    scans) stream the same layout (SURVEY.md §7 hard-part 5).
+Design notes:
+  * Layout is [H, W, D] with D innermost: a pixel's D costs are contiguous,
+    and every SGM path direction streams the same layout (SURVEY.md §7
+    hard-part 5).
   * The d-shift fans out via ``jax.vmap`` over a statically padded right
     image/descriptor — one fused gather, no Python-level D loop at trace time.
   * Out-of-frame samples (x - d < 0) get the maximum unary cost so they never

@@ -4,11 +4,11 @@ Reference behavior (SURVEY.md §2.1 C9-C11): compute a right-view disparity
 map, invalidate pixels where |d_L(x) - d_R(x - d_L(x))| > tau, then a 3x3
 median filter; invalid pixels are marked (KITTI convention: 0 / mask).
 
-TPU-native design: the right-view map comes from re-indexing the already
-aggregated left volume, S_R(y, x, d) = S_L(y, x + d, d) — one gather instead
-of a second full pipeline pass (cfg.lr_exact=True runs the exact second pass
-in pipeline.py). The median is a 9-element sorting network on shifted maps,
-fully vectorized on the VPU.
+Design: the right-view map comes from re-indexing the already aggregated
+left volume, S_R(y, x, d) = S_L(y, x + d, d) — one re-index instead of a
+second full pipeline pass (cfg.lr_exact=True runs the exact second pass in
+pipeline.py). The median is a 9-element sorting network on shifted maps,
+fully elementwise.
 """
 
 from __future__ import annotations
@@ -48,8 +48,7 @@ def right_disparity_from_volume(
     )
 
     # Per-disparity shift instead of a 3D gather: XLA lowers the vmapped
-    # 1-D take to cheap slices, whereas a [H, W, D] take_along_axis gather
-    # is catastrophically slow on TPU (hundreds of ms at KITTI scale).
+    # 1-D take with static shifts to slices.
     def plane(s_d, dd):
         idx = jnp.minimum(jnp.arange(w) + md + dd, w - 1)
         shifted = jnp.take(s_d, idx, axis=1)          # [H, W]
@@ -66,8 +65,8 @@ def spill_width(num_disparities: int, min_disparity: int = 0) -> int:
     """Left-spill width: covers every position with an in-block source.
 
     Position p (block-local, < 0) has sources p + md + d for lanes
-    d < D, so the deepest reachable position is -(D + md - 1); pad to
-    the 128-lane tile (and at least one tile).
+    d < D, so the deepest reachable position is -(D + md - 1); rounded
+    up to a multiple of 128 columns (at least 128).
     """
     need = num_disparities + int(min_disparity)
     return max(128, -(-need // 128) * 128)
@@ -188,9 +187,8 @@ def lr_gate_from_right_map(
     ``r_delta`` (static int) overrides ``x_offset - r_offset`` in the
     per-plane shift. Tiled callers whose offsets are traced device
     indices but whose DIFFERENCE is algebraically static must pass it:
-    a traced shift turns the per-plane ``jnp.take`` into an XLA gather
-    on TPU — the exact pathology lr_consistency's docstring documents —
-    while a static one lowers to slices (round-3 advisor finding).
+    a traced shift turns the per-plane ``jnp.take`` into an XLA gather,
+    while a static one lowers to slices.
 
     Returns [H, Wl] bool.
     """
@@ -232,12 +230,10 @@ def lr_consistency(
     its right-image correspondence is in frame (globally, when the block is
     a tile of a larger image).
 
-    Gather-free: ``take_along_axis`` on the [H, W] maps lowers to an XLA
-    gather measuring ~5.4 ms/frame at KITTI scale on TPU (2-D gathers are
-    as pathological as the 3-D volume ones, SURVEY.md §7 hard-part 5).
-    Since the lookup offset is always one of the D disparity integers,
-    d_R(x - d_L) is instead a one-hot select over the D shifted copies of
-    the right map — plain slices + one [H, W, D] elementwise sweep, ~1 ms.
+    Gather-free: since the lookup offset is always one of the D disparity
+    integers, d_R(x - d_L) is a one-hot select over the D shifted copies
+    of the right map — plain slices + one [H, W, D] elementwise sweep
+    instead of a ``take_along_axis`` gather on the [H, W] maps.
     Winners outside [min_disparity, min_disparity + D) (possible only for
     out-of-contract inputs) clamp to the nearest disparity plane.
 
@@ -272,8 +268,7 @@ def median_3x3(disp: jnp.ndarray) -> jnp.ndarray:
     """3x3 median filter over the 9 shifted maps (edge-padded).
 
     Uses the fixed 19-comparator median-of-9 exchange network (Paeth) —
-    pure elementwise min/max on the VPU; a generic jnp.sort over a
-    stacked axis measured ~10x slower on TPU.
+    pure elementwise min/max, which XLA fuses into one kernel.
     """
     p = jnp.pad(disp, ((1, 1), (1, 1)), mode="edge")
     h, w = disp.shape

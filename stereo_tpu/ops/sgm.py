@@ -9,16 +9,17 @@ path direction r,
 
 summed over 4 paths (left/right/up/down) or 8 (plus diagonals).
 
-TPU-native design (SURVEY.md §3.2):
+Design (SURVEY.md §3.2):
   * Each direction is a ``jax.lax.scan`` along the scan axis with carry
-    ``L[lines, D]`` — the D-wide recurrence vectorizes on the VPU lanes and
-    all scanlines of a pass run in parallel in the sublane dimension.
+    ``L[lines, D]`` — the D-wide recurrence is vectorized and all
+    scanlines of a pass run in parallel.
   * Diagonal paths shear the volume so the diagonal becomes a column
     (SURVEY.md §7 hard-part 2): sheared[y, x'] = cost[y, x' + y - (H-1)]
     turns the down-right diagonal into a vertical scan; validity masks feed
     the scan so carries reset at image borders (fresh start: L = C).
-  * The Pallas grid kernel in ops/pallas/sgm_kernel.py implements the same
-    recurrence blocked over VMEM; this function is its bit-exact oracle.
+  * The Triton kernel in ops/pallas/sgm_kernel.py implements the same
+    recurrence for the GPU; this function is its bit-exact oracle and the
+    path for masked tiles and the exact reshard.
 """
 
 from __future__ import annotations
@@ -59,7 +60,10 @@ def _scan_direction(
         if use_grad:
             c, prev_valid, img_cur = xs
             # adaptive_grad_floor: gradients at or below the sensor-noise
-            # floor count as flat (full P2) — see adaptive_p2_map.
+            # floor count as flat (full P2). The classic P2/|dI| divides by
+            # the NOISE amplitude in flat regions (sigma=6 -> |dI| ~ 7 ->
+            # P2/7), collapsing the smoothing textureless content needs
+            # (measured on the hard suite, docs/tuning.md).
             grad = jnp.abs(img_cur - img_prev) - jnp.int32(
                 cfg.adaptive_grad_floor
             )
@@ -153,51 +157,6 @@ def _unshear(x: jnp.ndarray, sign: int, w: int) -> jnp.ndarray:
     src = xs - ys + (h - 1) if sign > 0 else xs + ys
     return jnp.take_along_axis(
         x, src.reshape(h, w, *([1] * (x.ndim - 2))), axis=1
-    )
-
-
-def adaptive_p2_map(image: jnp.ndarray, cfg: StereoConfig, dy: int, dx: int
-                    ) -> jnp.ndarray:
-    """Per-pixel effective P2 for one path direction (Hirschmueller '08).
-
-    The golden recurrence (``_scan_direction``) computes, per scan step,
-    ``grad = |I(p) - I(p - r)|`` and ``p2_eff = max(p2_min, P2 // grad)``
-    (``P2`` where the gradient is zero). Because this depends only on the
-    image — never on the carry — it precomputes as a pure elementwise map,
-    which is how the Pallas kernels consume it (ops/pallas/sgm_kernel.py:
-    one [H, W] map per direction, broadcast over D in the recurrence).
-
-    Args:
-      image: [H, W] intensities.
-      cfg: supplies p2 / p2_min.
-      dy, dx: offset of the path PREDECESSOR: pred(y, x) = (y+dy, x+dx).
-
-    Returns [H, W] int32. Entries whose predecessor falls outside the
-    image are don't-care (the scans fresh-start there).
-    """
-    img = image.astype(jnp.int32)
-    prev = jnp.roll(img, (-dy, -dx), (0, 1))
-    # cfg.adaptive_grad_floor subtracts the sensor-noise floor first:
-    # gradients <= floor count as flat and keep the full P2. The classic
-    # formula (floor 0) divides P2 by the NOISE amplitude in flat regions
-    # (sigma=6 -> |dI| ~ 7 -> P2/7), collapsing exactly the smoothing
-    # that textureless content needs — measured on the hard suite, where
-    # floor 0 made adaptive P2 WORSE than fixed P2 on the textureless
-    # scenario while still winning on thin structures (docs/tuning.md).
-    grad = jnp.abs(img - prev) - jnp.int32(cfg.adaptive_grad_floor)
-    p2 = jnp.int32(cfg.p2)
-    # floor(p2 / grad) via f32 reciprocal multiply + one correction step:
-    # TPUs have no integer-divide unit, and the jnp `//` lowering was the
-    # dominant cost of the 8-map per-frame precompute (round-4 adaptive
-    # roofline). Exact for the value range (p2, grad < 2^24): the f32
-    # quotient is within +-1 of floor and the correction removes it —
-    # bit-identical to `p2 // grad` (the golden scan's form).
-    g = jnp.maximum(grad, 1)
-    q = (p2.astype(jnp.float32) / g.astype(jnp.float32)).astype(jnp.int32)
-    r = p2 - q * g
-    q = q + (r >= g).astype(jnp.int32) - (r < 0).astype(jnp.int32)
-    return jnp.where(
-        grad > 0, jnp.maximum(jnp.int32(cfg.p2_min), q), p2
     )
 
 

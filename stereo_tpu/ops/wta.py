@@ -5,13 +5,9 @@ then a parabola fit through the winner's neighboring costs:
 
     d* = d - (C+ - C-) / (2 (C+ - 2 C0 + C-))
 
-TPU-native design: everything is reductions and masked sweeps over the D
-lane axis — no gathers. ``take_along_axis`` on a [H, W, D] volume lowers to
-an XLA gather that is orders of magnitude slower on TPU than three extra
-masked min-reductions; the winner cost is simply the min, and the +-1
-neighbor costs come from iota-mask reductions. The fully fused variant
-(inside the SGM scan epilogue, never materializing S) lives in
-ops/pallas/sgm_kernel.py; this jnp version is the oracle.
+Design: everything is reductions and masked sweeps over the D axis — no
+gathers. The winner cost is simply the min, and the +-1 neighbor costs come
+from iota-mask reductions, which XLA fuses with the argmin sweep.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Distribution layer: meshes, exact resharding, halo tiling, streaming.
 
-All new TPU-native scope — the reference is single-process single-device
+All new scope — the reference is single-process single-device
 (SURVEY.md §1.1). Strategies (SURVEY.md §2.2): P1 batch data parallelism
 (stream.py), P2 spatial tile parallelism with halo exchange + P5 ring-style
 neighbor ppermute (tiling.py), P6 Ulysses-style reshard between SGM pass

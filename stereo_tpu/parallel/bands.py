@@ -51,7 +51,7 @@ def build_banded_pipeline(
       n_cols: optional vertical splits with STATIC global x offsets, so the
         Pallas fast path's disparity-range masking and LR framing stay
         frame-exact; only SGM warm-up at patch edges is approximate.
-        Two overlap regimes (VERDICT r2 #7):
+        Two overlap regimes:
           * stitched (default where supported — census/rank costs with the
             cheap-LR re-index): patches carry only the warm-up halo. The
             disparity search reads frame-true right-image context

@@ -6,7 +6,7 @@ sheared volume) device-local. Instead of cross-device sequential wavefronts,
 this mode resharding the cost volume between pass families — exactly the
 Ulysses head<->sequence trick (SURVEY.md §2.2 P6): annotate the inputs of
 each family with `with_sharding_constraint` and let XLA insert the
-`all_to_all` on ICI.
+`all_to_all` (NCCL over NVLink on one host).
 
 Because every scan runs complete and device-local, the result is
 **bit-identical** to the single-device golden pipeline — the property the

@@ -1,11 +1,12 @@
 """Mesh construction and multi-process bring-up (SURVEY.md §2.2 P8).
 
 The reference is a single-process, single-device OpenCL program with no
-distributed layer at all (SURVEY.md §1.1); everything here is new TPU-native
-scope. No custom transport is built: `jax.distributed.initialize` brings up
-processes, and XLA compiles `ppermute`/`all_gather`/`all_to_all`/`psum` onto
-ICI within a slice and DCN across hosts (SURVEY.md §5 "distributed
-communication backend").
+distributed layer at all (SURVEY.md §1.1); everything here is new scope. No
+custom transport is built: `jax.distributed.initialize` brings up processes,
+and XLA hands `ppermute`/`all_gather`/`all_to_all`/`psum` to NCCL, over
+NVLink between the cards of a host (SURVEY.md §5 "distributed communication
+backend"). Every card reaches every other at the same rate, so mesh shapes
+follow the algorithm (tile rows vs columns), not a physical topology.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ def initialize_multihost(
 ) -> None:
     """Bring up the JAX distributed runtime (no-op for single process).
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    localhost multi-process tests pass them explicitly (SURVEY.md §4.3).
+    Nothing detects a cluster automatically: callers pass the coordinator
+    address (``localhost:<port>`` on one host), the process count and this
+    process's id (SURVEY.md §4.3).
     """
     if num_processes is not None and num_processes <= 1:
         return

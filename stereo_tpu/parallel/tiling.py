@@ -163,9 +163,9 @@ def make_tile_fn(
     pipeline (parallel/stream.py), which vmaps it over a frame axis.
 
     ``trivial=True`` marks a 1x1 tile grid with no padding: the tile IS the
-    frame, so no halo exchange, no validity mask, and crucially no blocker
-    for the fused Pallas fast path (a single-chip 'batch'-only stream would
-    otherwise silently fall back to the golden jnp pipeline).
+    frame, so no halo exchange and no validity mask — the SGM kernel serves
+    it (a single-card 'batch'-only stream would otherwise aggregate on the
+    golden scan).
     """
     if trivial:
 
@@ -206,11 +206,8 @@ def make_tile_fn(
         # disparity values: running it inside the extended tile would
         # mix disparities computed at out-of-image replica pixels,
         # whereas the untiled pipeline replicates the edge *disparity*.
-        # Passing the rectangular frame coordinates (offsets + extents)
-        # instead of only the dense mask lets the fused Pallas kernels run
-        # per tile with traced frame bounds (ops/pallas/sgm_kernel.py
-        # frame_bounds) — the dense mask is the same rectangle and is
-        # still used by the golden path and for the output crop below.
+        # The mask makes SGM carries restart at the frame's edges, so the
+        # tile aggregates on the golden scan (pipeline.aggregate).
         cfg_tile = cfg.replace(median_filter=False)
         res = compute_disparity(
             l_ext, r_ext, cfg_tile, valid=valid, x_offset=x0, image_width=w,
@@ -239,7 +236,7 @@ def make_stitched_tile_fn(
     bw: int,
     halo: int,
 ):
-    """Stitched-LR tile body: warm-up-only x-overlap (VERDICT r2 #7, the
+    """Stitched-LR tile body: warm-up-only x-overlap (the
     distributed twin of parallel/bands.py's stitched regime).
 
     The legacy tile pays halo + D of x-halo on BOTH sides (cost reach on
@@ -437,8 +434,9 @@ def build_halo_pipeline(
             mesh=mesh,
             in_specs=(P("ty", "tx"), P("ty", "tx")),
             out_specs=StereoResult(disp=P("ty", "tx"), valid=P("ty", "tx")),
-            # pallas_call out_shapes carry no varying-mesh-axes metadata;
-            # out_specs above already pin the output layout.
+            # The SGM kernel's pallas_call (a trivial tile is a whole
+            # frame) carries no varying-mesh-axes metadata; out_specs
+            # above already pin the output layout.
             check_vma=False,
         )(left_p, right_p)
         return StereoResult(disp=res.disp[:h, :w], valid=res.valid[:h, :w])

@@ -4,10 +4,11 @@ Reference call stack (SURVEY.md §3.1): the OpenCL host enqueues one kernel
 per stage (census -> cost volume -> per-path SGM scans -> WTA -> subpixel ->
 LR-check -> median), crossing the host/device boundary per enqueue.
 
-TPU-native design: the whole pipeline is ONE pure function traced once under
-``jax.jit`` with the config static — XLA sees the full dataflow, fuses
-stages, and the only host<->device crossing is the final
-``jax.device_get`` (SURVEY.md §3.1 "single boundary crossing").
+Here the whole pipeline is ONE pure function traced once under ``jax.jit``
+with the config static — XLA sees the full dataflow, fuses stages, and the
+only host<->device crossing is the final ``jax.device_get`` (SURVEY.md §3.1
+"single boundary crossing"). SGM aggregation is the one stage with a
+hand-written kernel (``aggregate`` picks it); every other stage is XLA.
 """
 
 from __future__ import annotations
@@ -42,137 +43,53 @@ class StereoResult(NamedTuple):
     valid: jnp.ndarray
 
 
-def _pallas_mode(cfg: StereoConfig, valid, constrain, rect: bool = False):
-    """Backend dispatch (SURVEY.md §2.1: every hot op has a jnp golden AND a
-    Pallas TPU kernel behind the same signature).
+def _sgm_kernel_mode(cfg: StereoConfig, valid, constrain) -> Optional[bool]:
+    """Which SGM implementation aggregates this call.
 
-    The Pallas SGM path runs on a real TPU for full-frame aggregation and
-    for RECTANGULAR-frame tiles (``rect``: the caller passed tile offsets +
-    global frame extents, so any ``valid`` mask is exactly the in-frame
-    rectangle — parallel/tiling.py's halo tiles). Arbitrarily-masked and
-    sharding-constrained (exact-reshard) calls use the golden lax.scan
-    implementation; adaptive-P2 configs ride the Pallas kernels (the
-    per-direction effective-P2 maps precompute in XLA).
-
-    Returns None (golden) or an ``interpret`` bool for the Pallas kernels
-    (backend="pallas_interpret" runs them in interpreter mode — CPU CI for
-    the tiled fast path).
+    Returns None for the golden ``lax.scan`` (ops/sgm.py) or the
+    ``interpret`` flag for the Triton kernel (ops/pallas/sgm_kernel.py).
+    The kernel runs on the GPU for unmasked, unconstrained aggregation:
+    whole frames, parallel/bands.py patches and the pyramid's residual
+    volume. Masked tiles (parallel/tiling.py), the exact reshard
+    (parallel/exact.py) and every call on another platform take the golden
+    scan. ``backend="pallas"`` forces the compiled kernel and
+    ``"pallas_interpret"`` the interpreted one; a forced backend raises on
+    a call the kernel cannot serve instead of falling back.
     """
-    if cfg.backend == "jnp":
+    if cfg.num_paths == 0 or cfg.backend == "jnp":
         return None
     forced = cfg.backend in ("pallas", "pallas_interpret")
-    blocked = (
-        constrain is not None
-        or (valid is not None and not rect)
-    )
-    if blocked:
+    if valid is not None or constrain is not None:
         if forced:
             raise NotImplementedError(
-                "pallas backend does not support masked/constrained "
-                "aggregation yet; use backend='auto' or 'jnp'"
+                "the SGM kernel aggregates unmasked, unconstrained volumes "
+                "only; use backend='auto' or 'jnp' for masked tiles and the "
+                "exact reshard"
             )
         return None
-    if cfg.num_paths == 0:
-        return None
-    if forced:
-        return cfg.backend == "pallas_interpret"
-    return False if jax.default_backend() == "tpu" else None
+    if cfg.backend == "pallas_interpret":
+        return True
+    on_gpu = jax.default_backend() == "gpu"
+    if cfg.backend == "pallas" and not on_gpu:
+        raise NotImplementedError(
+            "backend='pallas' compiles the SGM kernel for a GPU, but JAX "
+            f"runs on {jax.default_backend()!r}; use 'pallas_interpret'"
+        )
+    return False if on_gpu else None
 
 
-def _cost_kernel_for(cfg: StereoConfig, h: int, w: int):
-    """The Pallas cost-volume builder for this config, or None.
+def aggregate(
+    vol, cfg: StereoConfig, image=None, valid=None, constrain=None
+):
+    """SGM-aggregated [H, W, D] int32 volume through the dispatch rule."""
+    mode = _sgm_kernel_mode(cfg, valid, constrain)
+    if mode is None:
+        return sgm_aggregate(
+            vol, cfg, image=image, valid=valid, constrain=constrain
+        )
+    from ..ops.pallas.sgm_kernel import sgm_aggregate_pallas
 
-    All three matching costs (SURVEY.md C2-C5) have TPU kernels; SAD falls
-    back to the golden XLA path when its fused box filter would overflow
-    VMEM (sad_kernel_supported).
-    """
-    from ..ops.pallas import cost_kernel as ck
-
-    if cfg.cost_fn == "census":
-        return ck.census_cost_volume_pallas
-    if cfg.cost_fn == "rank":
-        return ck.rank_cost_volume_pallas
-    if cfg.cost_fn == "sad" and ck.sad_kernel_supported(cfg, h, w):
-        return ck.sad_cost_volume_pallas
-    return None
-
-
-def _vol_dtype(cfg: StereoConfig, h: int, w: int):
-    """Narrowest cost-volume dtype the Pallas SGM passes can tile here.
-
-    int8 (exact for census/rank, cfg.cost_volume_dtype) halves the volume's
-    HBM traffic through the four SGM passes, but int8 arrays tile as
-    (32, 128): every block's trailing two dims must align, else int16.
-    """
-    from ..ops.pallas.sgm_kernel import plan_dims
-
-    if jnp.dtype(cfg.cost_volume_dtype).itemsize != 1:
-        return jnp.int16
-    br, hp, _, wp = plan_dims(h, w, cfg.num_disparities)
-    if (
-        cfg.num_disparities % 128 == 0
-        and hp % 32 == 0
-        and br % 32 == 0
-        and wp % 128 == 0
-    ):
-        return jnp.int8
-    return jnp.int16
-
-
-def _cost_kern_kw(cfg: StereoConfig, h: int, w: int, right_context: int = 0):
-    """(Pallas cost kernel or None, dtype kwargs) for the fused paths.
-
-    One definition for the dispatch rule shared by compute_disparity,
-    _fused_view and compute_patch_parts: SAD has no context path (falls
-    back to the golden volume), census/rank kernels take the narrowest
-    tileable volume dtype.
-    """
-    kern = _cost_kernel_for(cfg, h, w)
-    if right_context and cfg.cost_fn == "sad":
-        kern = None
-    kw = (
-        {"out_dtype": _vol_dtype(cfg, h, w)}
-        if cfg.cost_fn in ("census", "rank")
-        else {}
-    )
-    return kern, kw
-
-
-def _build_cost(left, right, cfg: StereoConfig, valid, constrain, x_offset,
-                right_context=0):
-    """[H, W, D] cost volume; Pallas kernels where they apply.
-
-    Unconstrained, unmasked, static-origin calls (whole frames and
-    parallel/bands.py patches — including WTA-only configs like the
-    tsukuba_sad16 preset, whose num_paths=0 skips the fused SGM path) get
-    the Pallas cost kernels; everything else the golden XLA construction.
-    Bit-exact either way (tests/ops/test_pallas_cost.py).
-    """
-    usable = (
-        cfg.backend != "jnp"
-        and constrain is None
-        and valid is None
-        and isinstance(x_offset, int)
-        and (right_context == 0 or cfg.cost_fn in ("census", "rank"))
-    )
-    interp = False
-    if usable:
-        if cfg.backend in ("pallas", "pallas_interpret"):
-            interp = cfg.backend == "pallas_interpret"
-        else:
-            usable = jax.default_backend() == "tpu"
-    if usable:
-        kern = _cost_kernel_for(cfg, *left.shape)
-        if kern is not None:
-            h, w = left.shape
-            volp, _ = kern(
-                left, right, cfg, x_offset=x_offset, interpret=interp,
-                right_context=right_context,
-            )
-            return volp[:h, :w].astype(jnp.int32)
-    return cost_volume(
-        left, right, cfg, x_offset=x_offset, right_context=right_context
-    )
+    return sgm_aggregate_pallas(vol, cfg, image=image, interpret=mode)
 
 
 def _aggregate(
@@ -180,8 +97,8 @@ def _aggregate(
     right_context=0,
 ):
     """Cost volume + SGM for one reference view. Returns [H, W, D] int."""
-    vol = _build_cost(
-        left, right, cfg, valid, constrain, x_offset, right_context
+    vol = cost_volume(
+        left, right, cfg, x_offset=x_offset, right_context=right_context
     )
     if constrain is not None and len(constrain) > 2 and constrain[2] is not None:
         # Cost-volume placement hook: P3 disparity-plane sharding
@@ -190,178 +107,7 @@ def _aggregate(
         # shardings the SGM pass families request below.
         vol = constrain[2](vol)
         constrain = constrain[:2]
-    mode = _pallas_mode(cfg, valid, constrain)
-    if mode is not None:
-        from ..ops.pallas.sgm_kernel import sgm_aggregate_pallas
-
-        # Narrow volume dtypes halve SGM's HBM traffic (int8 for census/
-        # rank, int16 for SAD; L <= max_unary_cost + P2, 8*L < 2^15 keeps
-        # the int16 accumulator exact). Downstream reductions consume S as
-        # f32 (integer VPU ops are ~3x slower on v5e; the cast fuses into
-        # the WTA/LR sweeps and values stay exact below 2^24).
-        h, w = left.shape
-        s16 = sgm_aggregate_pallas(
-            vol.astype(_vol_dtype(cfg, h, w)), cfg, interpret=mode,
-            acc_dtype=jnp.int16, image=left,
-        )
-        return s16.astype(jnp.float32)
-    if jax.default_backend() == "tpu":
-        # Same f32 speedup for the golden path (tiled/constrained/adaptive
-        # modes); f32 is exact for these integer-valued costs.
-        vol = vol.astype(jnp.float32)
-    return sgm_aggregate(vol, cfg, image=left, valid=valid, constrain=constrain)
-
-
-def _fused_view(
-    ref, tgt, cfg: StereoConfig, interpret: bool, emit_d0: bool
-):
-    """One reference-view pass through the fused Pallas pipeline.
-
-    ``ref`` is the reference image (left, or the flipped right for the
-    exact-LR second pass), ``tgt`` the match image. Returns the fused
-    kernel's raw outputs (disp, valid-or-packed).
-    """
-    from ..ops.pallas.sgm_kernel import sgm_wta_fused_pallas
-
-    th, tw = ref.shape
-    kern, kw = _cost_kern_kw(cfg, th, tw)
-    if kern is not None:
-        vol, vol_whd = kern(ref, tgt, cfg, x_offset=0, interpret=interpret, **kw)
-        return sgm_wta_fused_pallas(
-            vol, cfg, cost_whd=vol_whd, true_shape=(th, tw),
-            interpret=interpret, acc_dtype=jnp.int16, image=ref,
-            emit_d0=emit_d0,
-        )
-    vol = cost_volume(ref, tgt, cfg, x_offset=0)
-    return sgm_wta_fused_pallas(
-        vol.astype(_vol_dtype(cfg, th, tw)), cfg, interpret=interpret,
-        acc_dtype=jnp.int16, image=ref, emit_d0=emit_d0,
-    )
-
-
-#: MEASURED NEGATIVE (round 5, VERDICT r4 #4 — docs/kernels.md "lr_exact
-#: re-index"): replacing the exact-LR second cost pass with the exact
-#: identity below measured 18.7 ms/frame vs 16.6 ms for the flipped-pair
-#: recompute on the chip (the per-plane shift sweep costs ~4.9 ms in XLA
-#: against the ~2.8 ms cost pass it saves, and no cheaper TPU layout op
-#: exists: a log2(D) gated-rotate butterfly needs ~28 ops/voxel PER
-#: LAYOUT vs the cost kernel's 14-21 total). The identity and its
-#: bit-identity tests are kept — flip this flag to reproduce the A/B.
-LR_EXACT_REINDEX = False
-
-
-def reindex_right_flipped(vol, cfg: StereoConfig, w: int, x_axis: int):
-    """FLIPPED right-reference cost volume re-indexed from the LEFT one.
-
-    For every per-pixel descriptor cost (census/rank — NOT box-filtered
-    SAD, whose edge replication is reference-centered) the right-view
-    cost is an exact re-index of the left volume:
-
-        C_R(y, x, d) = C_L(y, x + md + d, d)        (md = min_disparity)
-
-    because both sides score the same (left-pixel, right-pixel)
-    descriptor pair. The exact-LR second pass runs on the FLIPPED pair,
-    whose volume is therefore C_Rflip(y, x', d) = C_L(y, W-1-x'+md+d, d)
-    — a horizontal flip plus D per-plane shifts of the volume the
-    left pass already built. Entries whose left coordinate would leave
-    the frame (x' - md - d < 0 in flipped coords) take max_unary_cost —
-    the exact invalid rule the flipped-pair cost kernel applies — so the
-    result is BIT-IDENTICAL to the flipped-pair construction
-    (tests/ops/test_pallas_fused.py::test_reindexed_right_volume_*).
-    SLOWER than the recompute on the chip (see LR_EXACT_REINDEX).
-
-    ``vol`` is a PADDED kernel-layout volume; ``x_axis`` locates the x
-    dim (1 for [hp, wp, D], 0 for the transposed [wp, hp, D]); padding
-    columns are refilled with max_unary_cost (masked downstream by
-    true_shape).
-    """
-    d = cfg.num_disparities
-    md = int(cfg.min_disparity)
-    maxc = jnp.asarray(cfg.max_unary_cost, vol.dtype)
-    wp = vol.shape[x_axis]
-    sl = [slice(None)] * vol.ndim
-    sl[x_axis] = slice(w - 1, None, -1)          # valid columns, flipped
-    vf = vol[tuple(sl)]
-    xs = jnp.arange(w)
-    bshape = [1, 1]
-    bshape[x_axis] = w
-
-    def plane(v_d, dd):
-        idx = jnp.clip(xs - md - dd, 0, w - 1)
-        shifted = jnp.take(v_d, idx, axis=x_axis)
-        bad = xs - md - dd < 0
-        return jnp.where(bad.reshape(bshape), maxc, shifted)
-
-    out = jax.vmap(plane, in_axes=(2, 0), out_axes=2)(vf, jnp.arange(d))
-    if wp > w:
-        padw = [(0, 0)] * 3
-        padw[x_axis] = (0, wp - w)
-        out = jnp.pad(out, padw, constant_values=cfg.max_unary_cost)
-    return out
-
-
-def _lr_exact_fused(left, right, cfg: StereoConfig, interpret: bool):
-    """Exact left-right check with BOTH views on the fused kernels.
-
-    Mirrors the staged golden path (compute_disparity's lr_exact branch)
-    step for step: left-view WTA + subpixel + uniqueness, right-view
-    INTEGER winners from a full right-reference SGM aggregation, integer
-    consistency compare, then median — each stage the Pallas twin of its
-    golden counterpart, so the composition stays bit-identical.
-
-    Both views rebuild their cost volume in descriptor space (the
-    flipped-pair construction) — measured CHEAPER on the chip than
-    re-indexing the left volume via the exact C_R = shifted-C_L identity
-    (LR_EXACT_REINDEX above); only the SGM aggregation differs per view.
-    """
-    cfg_l = cfg.replace(lr_check=False, median_filter=False)
-    # Right view: integer winners only (subpixel/uniqueness affect only
-    # outputs the compare never reads).
-    cfg_r = cfg.replace(
-        lr_check=False, median_filter=False, subpixel=False,
-        uniqueness_ratio=0.0,
-    )
-    h, w = left.shape
-    kern, kw = _cost_kern_kw(cfg, h, w)
-    if (LR_EXACT_REINDEX and kern is not None
-            and cfg.cost_fn in ("census", "rank")):
-        from ..ops.pallas.sgm_kernel import sgm_wta_fused_pallas
-
-        vol, vol_whd = kern(left, right, cfg, x_offset=0,
-                            interpret=interpret, **kw)
-        disp, packed = sgm_wta_fused_pallas(
-            vol, cfg_l, cost_whd=vol_whd, true_shape=(h, w),
-            interpret=interpret, acc_dtype=jnp.int16, image=left,
-            emit_d0=True,
-        )
-        vol_rf = reindex_right_flipped(vol, cfg, w, x_axis=1)
-        vol_rf_whd = (
-            reindex_right_flipped(vol_whd, cfg, w, x_axis=0)
-            if vol_whd is not None
-            else None
-        )
-        disp_rf, _ = sgm_wta_fused_pallas(
-            vol_rf, cfg_r, cost_whd=vol_rf_whd, true_shape=(h, w),
-            interpret=interpret, acc_dtype=jnp.int16,
-            image=right[:, ::-1], emit_d0=False,
-        )
-    else:
-        disp, packed = _fused_view(left, right, cfg_l, interpret,
-                                   emit_d0=True)
-        disp_rf, _ = _fused_view(
-            right[:, ::-1], left[:, ::-1], cfg_r, interpret, emit_d0=False
-        )
-    ok = (packed & 1).astype(bool)
-    d_int_l = (packed >> 1).astype(jnp.float32) + jnp.float32(
-        cfg.min_disparity
-    )
-    disp_r = disp_rf[:, ::-1]
-    ok = ok & lr_consistency(d_int_l, disp_r, cfg)
-    if cfg.median_filter:
-        from ..ops.pallas.filter_kernel import median_3x3_pallas
-
-        disp = median_3x3_pallas(disp, interpret=interpret)
-    return StereoResult(disp=disp, valid=ok)
+    return aggregate(vol, cfg, image=left, valid=valid, constrain=constrain)
 
 
 class PatchParts(NamedTuple):
@@ -372,8 +118,8 @@ class PatchParts(NamedTuple):
     lr_bit: [H, W] int32 patch-local LR verdict (exact away from the
       patch's column edges; the stitcher replaces it in boundary strips).
     d0: [H, W] int32 integer winner LANE (min_disparity excluded).
-    qr: [H, W] f32 packed right-view partial min (right_view_partial_min /
-      the fused kernel's emit_qr output) — min-combinable across patches.
+    qr: [H, W] f32 packed right-view partial min (right_view_partial_min)
+      — min-combinable across patches.
     spill: [H, SP] f32 left-spill partial mins at block-local positions
       [-SP, 0) (right_view_spill) — this patch's contribution to the
       PREVIOUS patch's map.
@@ -401,13 +147,11 @@ def compute_patch_parts(
 ) -> PatchParts:
     """One column patch of a larger frame, gates left open for stitching.
 
-    The single-chip banded runner (parallel/bands.py) previously paid a
-    halo + D x-overlap per interior column edge so the in-patch LR check
-    could see the full right-view winner; with PatchParts each patch emits
-    its PARTIAL right-view packed min instead and the runner min-combines
-    neighbours in XLA (VERDICT r2 #7). Pallas fast path (emit_qr) on TPU /
-    interpret; golden mirror otherwise — bit-identical composition either
-    way (tests/ops/test_pallas_fused.py).
+    Each patch emits its PARTIAL right-view packed min instead of paying a
+    halo + D x-overlap per interior column edge, and the runner
+    (parallel/bands.py, parallel/tiling.py) min-combines neighbours in XLA.
+    Unmasked patches aggregate through the SGM kernel on the GPU; masked
+    rectangular tiles take the golden scan (``aggregate``'s dispatch).
 
     ``own``: static block-local (lo, hi) — the column range this patch
     OWNS; its partial-min outputs draw sources only from it, so the
@@ -417,9 +161,8 @@ def compute_patch_parts(
 
     ``image_height`` declares this a RECTANGULAR tile of a larger frame
     (parallel/tiling.py stitched halo mode): ``x_offset``/``y_offset``
-    may then be traced shard_map tile origins, ``valid`` (if given) must
-    be exactly the in-frame rectangle, and the fused kernels run with
-    traced frame bounds — mirroring compute_disparity's rect path.
+    may then be traced shard_map tile origins and ``valid`` (if given)
+    must be exactly the in-frame rectangle; without one it is derived.
     """
     if not (cfg.lr_check and not cfg.lr_exact and cfg.num_paths > 0):
         raise ValueError(
@@ -440,73 +183,34 @@ def compute_patch_parts(
 
     h, w = left.shape
     iw = image_width if image_width is not None else x_offset + w
-    mode = _pallas_mode(cfg, valid, None, rect=rect)
-    if mode is not None:
-        from ..ops.pallas.sgm_kernel import frame_bounds, sgm_wta_fused_pallas
-
-        bounds = (
-            frame_bounds(
-                h, w, x_offset=x_offset, y_offset=y_offset,
-                image_width=iw, image_height=image_height,
-            )
-            if rect
-            else None
-        )
-        kern, kw = _cost_kern_kw(cfg, h, w, right_context)
-        fkw = dict(
-            image_width=iw, interpret=mode, acc_dtype=jnp.int16,
-            image=left, emit_qr=True, qr_src=own, bounds=bounds,
-            x_offset=0 if rect else x_offset,
-        )
-        if kern is not None:
-            vol, vol_whd = kern(
-                left, right, cfg, x_offset=x_offset, interpret=mode,
-                right_context=right_context, **kw,
-            )
-            disp, packed, qr, spill = sgm_wta_fused_pallas(
-                vol, cfg, cost_whd=vol_whd, true_shape=(h, w), **fkw,
-            )
-        else:
-            vol = cost_volume(
-                left, right, cfg, x_offset=x_offset,
-                right_context=right_context,
-            )
-            disp, packed, qr, spill = sgm_wta_fused_pallas(
-                vol.astype(_vol_dtype(cfg, h, w)), cfg, **fkw,
-            )
-        ok_nolr = packed & 1
-        lr_bit = (packed >> 1) & 1
-        d0 = packed >> 2
-    else:
-        if rect and valid is None:
-            ih = image_height
-            ys = y_offset + jnp.arange(h)[:, None]
-            xs = x_offset + jnp.arange(w)[None, :]
-            valid = (ys >= 0) & (ys < ih) & (xs >= 0) & (xs < iw)
-        s = _aggregate(
-            left, right, cfg, valid=valid, x_offset=x_offset,
-            right_context=right_context,
-        )
-        disp, ok, d_int = wta_with_aux(s, cfg)
-        d0 = d_int - jnp.int32(cfg.min_disparity)
-        ok_nolr = ok.astype(jnp.int32)
-        qr = right_view_partial_min(s, cfg, x_offset, iw, src=own)
-        spill = right_view_spill(s, cfg, x_offset, iw, src=own)
-        d_r = unpack_partial_min(qr, cfg.num_disparities)
-        lr_bit = lr_gate_from_right_map(
-            d0, d_r, cfg, x_offset=x_offset, image_width=iw,
-            r_offset=x_offset,
-        ).astype(jnp.int32)
+    if rect and valid is None:
+        valid = _rect_mask(h, w, x_offset, y_offset, iw, image_height)
+    s = _aggregate(
+        left, right, cfg, valid=valid, x_offset=x_offset,
+        right_context=right_context,
+    )
+    disp, ok, d_int = wta_with_aux(s, cfg)
+    d0 = d_int - jnp.int32(cfg.min_disparity)
+    ok_nolr = ok.astype(jnp.int32)
+    qr = right_view_partial_min(s, cfg, x_offset, iw, src=own)
+    spill = right_view_spill(s, cfg, x_offset, iw, src=own)
+    d_r = unpack_partial_min(qr, cfg.num_disparities)
+    lr_bit = lr_gate_from_right_map(
+        d0, d_r, cfg, x_offset=x_offset, image_width=iw,
+        r_offset=x_offset,
+    ).astype(jnp.int32)
     if cfg.median_filter:
-        if mode is not None:
-            from ..ops.pallas.filter_kernel import median_3x3_pallas
-
-            disp = median_3x3_pallas(disp, interpret=mode)
-        else:
-            disp = median_3x3(disp)
+        disp = median_3x3(disp)
     return PatchParts(
         disp=disp, ok_nolr=ok_nolr, lr_bit=lr_bit, d0=d0, qr=qr, spill=spill
     )
+
+
+def _rect_mask(h, w, x_offset, y_offset, image_width, image_height):
+    """[h, w] mask of the block's pixels inside the (possibly larger) frame."""
+    ys = y_offset + jnp.arange(h)[:, None]
+    xs = x_offset + jnp.arange(w)[None, :]
+    return (ys >= 0) & (ys < image_height) & (xs >= 0) & (xs < image_width)
 
 
 def compute_disparity(
@@ -537,11 +241,9 @@ def compute_disparity(
         so disparity-range masking and LR framing match the untiled
         pipeline bit-exactly.
       y_offset / image_height: same for the y axis. Passing image_height
-        declares this block a RECTANGULAR tile of a larger frame whose
-        valid mask (if any) is exactly the in-frame rectangle — that lets
-        the fused Pallas kernels run with frame bounds instead of falling
-        back to the golden masked path (offsets may be traced shard_map
-        tile origins).
+        declares this block a RECTANGULAR tile of a larger frame; without
+        a ``valid`` mask the in-frame rectangle becomes the mask (offsets
+        may be traced shard_map tile origins).
 
     Returns: StereoResult(disp [H, W] f32, valid [H, W] bool).
     """
@@ -560,108 +262,14 @@ def compute_disparity(
             "(no lr_exact flipped pass, no rectangular-tile mode)"
         )
 
-    rect = image_height is not None
-    mode = _pallas_mode(cfg, valid, constrain, rect=rect)
-
-    if (
-        mode is not None
-        and cfg.lr_check
-        and cfg.lr_exact
-        and not rect
-        and right_context == 0
-        and isinstance(x_offset, int)
-        and x_offset == 0
-        and (image_width is None or image_width == left.shape[1])
-    ):
-        # Exact-LR on the FUSED fast path (VERDICT r2 #5): both views ride
-        # sgm_wta_fused_pallas (the right view as the flipped pair), the
-        # kernel packs integer winners beside the uniqueness gate
-        # (emit_d0), and the consistency compare runs on [H, W] integer
-        # maps in XLA — bit-identical to the staged golden lr_exact path
-        # (tests/ops/test_pallas_fused.py) while skipping two S
-        # materializations and two XLA WTA sweeps. Full single frames
-        # only; tiles/patches keep the staged path (their halo widths are
-        # derived for the re-index LR).
-        return _lr_exact_fused(left, right, cfg, interpret=mode)
-
-    if mode is not None and not cfg.lr_exact:
-        # Fully fused fast path: SGM + WTA + subpixel + uniqueness +
-        # LR-check inside the final Pallas pass; the summed volume is never
-        # materialized in its final form (BASELINE.json:5). Bit-exact vs
-        # the staged golden path (tests/ops/test_pallas_fused.py).
-        from ..ops.pallas.sgm_kernel import frame_bounds, sgm_wta_fused_pallas
-
-        interpret = mode
-        th, tw = left.shape
-        static_off = isinstance(x_offset, int) and not rect
-        if rect:
-            iw = image_width if image_width is not None else tw
-            bounds = frame_bounds(
-                th, tw, x_offset=x_offset, y_offset=y_offset,
-                image_width=iw, image_height=image_height,
-            )
-        else:
-            iw = image_width
-            bounds = None
-        cost_kernel, kw = (
-            _cost_kern_kw(cfg, th, tw, right_context)
-            if (static_off or rect)
-            else (None, {})
+    if image_height is not None and valid is None:
+        # Rectangular tile of a larger frame: SGM carries restart at the
+        # frame's edges, not the block's.
+        valid = _rect_mask(
+            left.shape[0], left.shape[1], x_offset, y_offset,
+            image_width if image_width is not None else left.shape[1],
+            image_height,
         )
-        if cost_kernel is not None:
-            # Pallas cost kernels emit the padded volume (census/rank also
-            # the transposed layout feeding the horizontal SGM passes
-            # directly). Static patch origins (parallel/bands.py) and
-            # traced tile origins (parallel/tiling.py) thread straight
-            # into the kernels.
-            vol, vol_whd = cost_kernel(
-                left, right, cfg, x_offset=x_offset, interpret=interpret,
-                right_context=right_context, **kw,
-            )
-            disp, ok = sgm_wta_fused_pallas(
-                vol, cfg, cost_whd=vol_whd, true_shape=left.shape,
-                x_offset=x_offset if static_off else 0,
-                bounds=bounds, image_width=iw, interpret=interpret,
-                acc_dtype=jnp.int16, image=left,
-            )
-        elif static_off or rect:
-            vol = cost_volume(
-                left, right, cfg, x_offset=x_offset,
-                right_context=right_context,
-            )
-            disp, ok = sgm_wta_fused_pallas(
-                vol.astype(_vol_dtype(cfg, th, tw)), cfg,
-                x_offset=x_offset if static_off else 0,
-                bounds=bounds, image_width=iw, interpret=interpret,
-                acc_dtype=jnp.int16, image=left,
-            )
-        else:
-            vol = cost_volume(
-                left, right, cfg, x_offset=x_offset,
-                right_context=right_context,
-            )
-            s = sgm_aggregate(vol.astype(jnp.float32), cfg, image=left)
-            disp, ok, d_int = wta_with_aux(s, cfg)
-            disp, ok = apply_postprocess(
-                disp, ok, s, cfg.replace(median_filter=False),
-                x_offset, image_width, disp_int=d_int,
-            )
-        if cfg.median_filter:
-            # Pallas 3x3 median: the golden shifted-window fusion lowers
-            # poorly in XLA (~1.15 ms/frame at KITTI scale, ~12% of the
-            # pipeline); the kernel is bit-exact (tests/ops).
-            from ..ops.pallas.filter_kernel import median_3x3_pallas
-
-            disp = median_3x3_pallas(disp, interpret=interpret)
-        return StereoResult(disp=disp, valid=ok)
-
-    if rect and valid is None:
-        # Golden path on a rectangular tile: materialize the in-frame mask.
-        ih = image_height
-        iw = image_width if image_width is not None else left.shape[1]
-        ys = y_offset + jnp.arange(left.shape[0])[:, None]
-        xs = x_offset + jnp.arange(left.shape[1])[None, :]
-        valid = (ys >= 0) & (ys < ih) & (xs >= 0) & (xs < iw)
 
     s = _aggregate(
         left, right, cfg, valid=valid, constrain=constrain,
@@ -701,7 +309,7 @@ def compute_disparity(
 def build_pipeline(cfg: StereoConfig, donate: bool = False):
     """Return a jitted ``(left, right) -> StereoResult`` for a fixed config.
 
-    Config fields are baked in as static values (the TPU analog of the
+    Config fields are baked in as static values (the analog of the
     reference's compile-time #defines, SURVEY.md §5).
     """
     fn = functools.partial(compute_disparity, cfg=cfg)

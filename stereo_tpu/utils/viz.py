@@ -1,7 +1,7 @@
 """Disparity visualization: colormap PNG and error-map writers.
 
 Replaces the reference's OpenGL/GLFW live preview (SURVEY.md §2.3 I5 —
-an explicit non-goal on TPU pods) with artifact files.
+an explicit non-goal on accelerator hosts) with artifact files.
 """
 
 from __future__ import annotations

@@ -82,7 +82,7 @@ def _run_stream_workers(tmp_path, run_id, fail_after):
 
 
 def test_two_process_stream_kill_and_restart(tmp_path):
-    """SURVEY.md §5 failure detection (VERDICT r3 #7): the 2-process
+    """SURVEY.md §5 failure detection: the 2-process
     stream checkpoints, one worker is killed mid-stream (fault injection
     after 8 of 12 frames; process 1 os._exits with no cleanup), both
     restart from their manifests and finish — every frame processed

@@ -153,27 +153,18 @@ def test_patched_rows_and_cols():
     assert mismatch < 0.02, mismatch
 
 
-@pytest.mark.parametrize("seed", [2, 7])
-def test_halo_mode_pallas_matches_golden_tiles(mesh42, seed):
-    """The fused Pallas fast path inside halo tiles (traced frame bounds,
-    ops/pallas/sgm_kernel.py) must reproduce the golden-tiled output
-    bit-for-bit on the assembled frame: inside each tile's kept region the
-    masked recurrences are identical, and every cropped position where the
-    two backends legitimately diverge (halo strips, padding) is discarded
-    by the tile crop + global crop. Seed 2 regression-covers the cost
-    kernel's local-underflow clamp (x - d off the tile's left edge but
-    globally in-frame must clamp to the tile's column 0 like the golden
-    _shifted_stack, not roll-wrap)."""
-    pair = make_pair((64, 96), max_disp=10, kind="shapes", seed=seed)
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret"])
+def test_halo_mode_pallas_matches_golden_tiles(mesh42, backend):
+    """Halo tiles are masked (SGM carries restart at the frame's edges, not
+    the tile's), which the SGM kernel does not serve: a forced kernel
+    backend raises instead of silently running the golden scan."""
+    pair = make_pair((64, 96), max_disp=10, kind="shapes", seed=2)
     cfg = StereoConfig(
-        num_disparities=16, num_paths=8, subpixel=True, lr_check=True
+        num_disparities=16, num_paths=8, subpixel=True, lr_check=True,
+        backend=backend,
     )
-    fn_g = build_halo_pipeline(cfg.replace(backend="jnp"), mesh42)
-    fn_p = build_halo_pipeline(cfg.replace(backend="pallas_interpret"), mesh42)
-    dg, vg = fn_g(pair.left, pair.right)
-    dp, vp = fn_p(pair.left, pair.right)
-    np.testing.assert_array_equal(np.array(vp), np.array(vg))
-    np.testing.assert_allclose(np.array(dp), np.array(dg), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="unmasked"):
+        build_halo_pipeline(cfg, mesh42)(pair.left, pair.right)
 
 
 def test_exact_mode_adaptive_p2_bit_identical(mesh42):
@@ -190,21 +181,21 @@ def test_exact_mode_adaptive_p2_bit_identical(mesh42):
     np.testing.assert_array_equal(np.array(valid), g_valid)
 
 
-def test_halo_mode_pallas_adaptive_p2_matches_golden_tiles(mesh42):
-    """Adaptive-P2 effective-P2 maps inside halo tiles: the fused Pallas
-    path (tile image threaded through compute_disparity) reproduces the
-    golden-tiled output bit-for-bit."""
-    pair = make_pair((64, 96), max_disp=10, kind="shapes", seed=7)
+def test_halo_mode_pallas_adaptive_p2_matches_golden_tiles():
+    """A 1x1 tile grid is the whole frame: no mask, so the adaptive-P2 SGM
+    kernel runs inside shard_map and matches the golden scan bit-for-bit."""
+    pair = make_pair((40, 72), max_disp=10, kind="shapes", seed=7)
     cfg = StereoConfig(
         num_disparities=16, num_paths=8, adaptive_p2=True, p2_min=20,
         subpixel=True, lr_check=True,
     )
-    fn_g = build_halo_pipeline(cfg.replace(backend="jnp"), mesh42)
-    fn_p = build_halo_pipeline(cfg.replace(backend="pallas_interpret"), mesh42)
+    mesh1 = make_tile_mesh(jax.devices()[:1], mesh_shape=(1, 1))
+    fn_g = build_halo_pipeline(cfg.replace(backend="jnp"), mesh1)
+    fn_p = build_halo_pipeline(cfg.replace(backend="pallas_interpret"), mesh1)
     dg, vg = fn_g(pair.left, pair.right)
     dp, vp = fn_p(pair.left, pair.right)
     np.testing.assert_array_equal(np.array(vp), np.array(vg))
-    np.testing.assert_allclose(np.array(dp), np.array(dg), atol=1e-5)
+    np.testing.assert_array_equal(np.array(dp), np.array(dg))
 
 
 def test_dplane_cost_sharding_bit_identical(mesh42):
@@ -237,7 +228,7 @@ def test_dplane_cost_sharding_wta_only(mesh42):
 
 
 def test_stitched_columns_zero_penalty_bit_identical():
-    """LR stitching (warm-up-only column overlap, VERDICT r2 #7): with
+    """LR stitching (warm-up-only column overlap): with
     P1=P2=0 SGM carries no scan state, so the ONLY banded approximation
     (warm-up truncation) vanishes and the stitched runner must reproduce
     the whole-frame pipeline bit for bit — costs frame-true via
@@ -325,7 +316,7 @@ def test_stitched_tiles_zero_penalty_bit_identical(mesh42):
     ]:
         cfg = StereoConfig(**kw)
         g_disp, g_valid = _golden(pair, cfg)
-        for backend in ("auto", "pallas_interpret"):
+        for backend in ("auto", "jnp"):
             fn = build_halo_pipeline(
                 cfg.replace(backend=backend), mesh42, lr_stitch=True
             )

@@ -2,9 +2,7 @@
 
 Real multi-host hardware is unavailable in CI; these runs on the 8 fake
 CPU devices validate the INSTRUMENT — that scaling_report builds the right
-meshes, times them, and emits sane rows — not the hardware scaling curve
-(VERDICT r2 #3). The recorded harness-validation rows in
-bench_results/results.jsonl carry the same caveat.
+meshes, times them, and emits sane rows — not the hardware scaling curve.
 """
 
 import jax

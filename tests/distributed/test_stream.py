@@ -122,7 +122,7 @@ def test_run_batches_resume_skips_cursor(tmp_path, mesh_b2):
 
 
 def test_stream_mesh_scale_combined(tmp_path, mesh_b2):
-    """Config-5 CI scenario (VERDICT r2 #9): batch axis + 2x2 tiles +
+    """Config-5 CI scenario: batch axis + 2x2 tiles +
     fault injection + device-resident run_batches in one run, asserting
     bit-identity with the single-frame pipeline and resume accounting."""
     cfg = StereoConfig(

@@ -1,305 +1,56 @@
-"""Pallas SGM kernel vs the golden jnp implementation (interpret mode)."""
+"""Triton SGM kernel vs the golden scan (kernel in interpret mode on the CPU).
 
+The kernel is compiled for the GPU only on the card (chip_smoke.py compares
+it there at full width); here the interpreter runs the same kernel body.
+Shapes, dtypes and the CUDA lowering are in test_pallas_sgm_wrapper.py.
+"""
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from stereo_tpu.config import StereoConfig
-from stereo_tpu.ops import sgm_aggregate
+from stereo_tpu.ops import cost_volume, sgm_aggregate
 from stereo_tpu.ops.pallas.sgm_kernel import sgm_aggregate_pallas
 
+P2_MODES = {
+    "fixed": {},
+    "adaptive": dict(adaptive_p2=True, p2_min=17),
+    "adaptive_floor12": dict(adaptive_p2=True, p2_min=17, adaptive_grad_floor=12),
+}
+COSTS = {
+    "census": dict(cost_fn="census", census_window=(5, 5)),
+    "rank": dict(cost_fn="rank", census_window=(5, 5)),
+    "sad": dict(cost_fn="sad", sad_window=(3, 3)),
+}
 
+
+def _pair(h, w, seed):
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = np.roll(left, -3, axis=1) // 2 + rng.integers(
+        0, 128, size=(h, w)
+    ).astype(np.uint8)
+    return jnp.asarray(left), jnp.asarray(right)
+
+
+def _check(cost, cfg, image=None):
+    got = sgm_aggregate_pallas(cost, cfg, image=image, interpret=True)
+    want = sgm_aggregate(cost.astype(jnp.int32), cfg, image=image)
+    assert got.dtype == jnp.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("p2_mode", sorted(P2_MODES))
+@pytest.mark.parametrize("cost_fn", sorted(COSTS))
+@pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("paths", [4, 8])
-@pytest.mark.parametrize("dtype", [np.int32, np.int16])
-def test_pallas_sgm_matches_golden(paths, dtype):
-    rng = np.random.default_rng(paths)
-    h, w, d = 24, 40, 16  # h divisible by block (8): no padding path
-    cost = rng.integers(0, 25, size=(h, w, d)).astype(dtype)
-    cfg = StereoConfig(num_paths=paths, p1=3, p2=20)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True))
-    want = np.array(sgm_aggregate(cost.astype(np.int32), cfg)).astype(dtype)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_sgm_row_padding():
-    """H not divisible by the row block: padded rows must not leak."""
-    rng = np.random.default_rng(0)
-    h, w, d = 21, 32, 16
-    cost = rng.integers(0, 25, size=(h, w, d)).astype(np.int32)
-    cfg = StereoConfig(num_paths=8, p1=4, p2=30)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True))
-    want = np.array(sgm_aggregate(cost, cfg))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_sgm_d128():
-    """Full 128-lane disparity axis (the KITTI config's D)."""
-    rng = np.random.default_rng(1)
-    cost = rng.integers(0, 25, size=(16, 24, 128)).astype(np.int16)
-    cfg = StereoConfig(num_paths=8, p1=10, p2=120)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True))
-    want = np.array(sgm_aggregate(cost.astype(np.int32), cfg)).astype(np.int16)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_sgm_zero_penalties():
-    rng = np.random.default_rng(2)
-    cost = rng.integers(0, 25, size=(8, 16, 8)).astype(np.int32)
-    cfg = StereoConfig(num_paths=8, p1=0, p2=0)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True))
-    np.testing.assert_array_equal(got, cost * 8)
-
-
-@pytest.mark.parametrize("paths", [4, 8])
-def test_pallas_sgm_lane_packed_small_d(paths):
-    """Lane-packed small-D path (G = 128/D adjacent scanlines / x share the
-    lane axis, segmented recurrence): bit-exact vs golden, including the
-    diagonal cross-x shifts at group and sublane boundaries."""
-    from stereo_tpu.ops.pallas import sgm_kernel as sk
-
-    rng = np.random.default_rng(paths)
-    h, w, d = 130, 150, 16  # pads to (256, 256); exercises crop + packing
-    br, _, _, wp = sk.plan_dims(h, w, d)
-    assert br % (8 * (128 // d)) == 0 and wp % (8 * (128 // d)) == 0, \
-        "shape must take the packed path"
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=7, p2=100)
-    got = np.array(
-        sgm_aggregate_pallas(
-            cost.astype(np.int16), cfg, interpret=True, acc_dtype=np.int16
-        )
-    ).astype(np.int32)
-    want = np.array(sgm_aggregate(cost, cfg))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_sgm_lane_packed_rect_bounds():
-    """Packed path with frame bounds: the packed x iota must reproduce the
-    golden rectangular-mask fresh starts."""
-    import jax.numpy as jnp
-
-    from stereo_tpu.ops.pallas.sgm_kernel import frame_bounds
-
-    rng = np.random.default_rng(5)
-    h, w, d = 128, 128, 16
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    cfg = StereoConfig(num_disparities=d, num_paths=8, p1=7, p2=100)
-    y0, x0, ih, iw = -5, -7, 100, 110
-    b = frame_bounds(h, w, x_offset=x0, y_offset=y0,
-                     image_width=iw, image_height=ih)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True, bounds=b))
-    ys = y0 + np.arange(h)[:, None]
-    xs = x0 + np.arange(w)[None, :]
-    rect = (ys >= 0) & (ys < ih) & (xs >= 0) & (xs < iw)
-    want = np.array(sgm_aggregate(cost, cfg, valid=jnp.asarray(rect)))
-    np.testing.assert_array_equal(got[rect], want[rect])
-
-
-@pytest.mark.parametrize("paths", [4, 8])
-def test_pallas_sgm_adaptive_p2_matches_golden(paths):
-    """Adaptive P2 (Hirschmueller '08): per-direction effective-P2 maps
-    through all four blocked passes, bit-exact vs the golden image-gradient
-    recurrence."""
-    rng = np.random.default_rng(paths + 20)
-    h, w, d = 37, 150, 32  # exercises row and column padding
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    img = rng.integers(0, 255, size=(h, w)).astype(np.uint8)
+def test_kernel_matches_golden(paths, d, cost_fn, p2_mode):
+    """Real cost volumes (their value ranges and int8/int16 reads) through
+    every path set, disparity width and P2 rule."""
+    left, right = _pair(4, 7, seed=paths + d)
     cfg = StereoConfig(
         num_disparities=d, num_paths=paths, p1=7, p2=100,
-        adaptive_p2=True, p2_min=17,
+        **COSTS[cost_fn], **P2_MODES[p2_mode],
     )
-    got = np.array(
-        sgm_aggregate_pallas(
-            cost.astype(np.int16), cfg, interpret=True,
-            acc_dtype=np.int16, image=img,
-        )
-    ).astype(np.int32)
-    want = np.array(sgm_aggregate(cost, cfg, image=img))
-    np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("paths", [4, 8])
-def test_pallas_sgm_adaptive_cp_stream_matches_golden(paths, monkeypatch):
-    """The CP-stream h-pass experiment (VERDICT r4 #2, _ADAPTIVE_CP_H):
-    min(C + min(prev, min(dn,up)+P1) - m, C + P2_eff) must stay
-    bit-exact vs the golden adaptive recurrence (d >= 128 unrolled
-    form)."""
-    import stereo_tpu.ops.pallas.sgm_kernel as sk
-
-    monkeypatch.setattr(sk, "_ADAPTIVE_CP_H", True)
-    rng = np.random.default_rng(paths + 60)
-    h, w, d = 16, 150, 128
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    img = rng.integers(0, 255, size=(h, w)).astype(np.uint8)
-    cfg = StereoConfig(
-        num_disparities=d, num_paths=paths, p1=7, p2=100,
-        adaptive_p2=True, p2_min=17, adaptive_grad_floor=6,
-    )
-    got = np.array(
-        sk.sgm_aggregate_pallas(
-            cost.astype(np.int16), cfg, interpret=True,
-            acc_dtype=np.int16, image=img,
-        )
-    ).astype(np.int32)
-    want = np.array(sgm_aggregate(cost, cfg, image=img))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pallas_sgm_adaptive_p2_requires_image():
-    cost = np.zeros((8, 16, 8), np.int32)
-    cfg = StereoConfig(num_paths=4, adaptive_p2=True)
-    with pytest.raises(ValueError, match="image"):
-        sgm_aggregate_pallas(cost, cfg, interpret=True)
-
-
-def test_pallas_sgm_adaptive_p2_rect_bounds():
-    """Adaptive P2 on a tile: frame-bounds fresh starts + gradient maps
-    from the tile image agree with the golden masked recurrence inside
-    the in-frame rectangle."""
-    import jax.numpy as jnp
-
-    from stereo_tpu.ops.pallas.sgm_kernel import frame_bounds
-
-    rng = np.random.default_rng(31)
-    h, w, d = 24, 40, 16
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    img = rng.integers(0, 255, size=(h, w)).astype(np.uint8)
-    cfg = StereoConfig(
-        num_disparities=d, num_paths=8, p1=7, p2=100,
-        adaptive_p2=True, p2_min=17,
-    )
-    y0, x0, ih, iw = -5, -7, 17, 29
-    b = frame_bounds(h, w, x_offset=x0, y_offset=y0,
-                     image_width=iw, image_height=ih)
-    got = np.array(
-        sgm_aggregate_pallas(cost, cfg, interpret=True, bounds=b, image=img)
-    )
-    ys = y0 + np.arange(h)[:, None]
-    xs = x0 + np.arange(w)[None, :]
-    rect = (ys >= 0) & (ys < ih) & (xs >= 0) & (xs < iw)
-    want = np.array(
-        sgm_aggregate(cost, cfg, image=img, valid=jnp.asarray(rect))
-    )
-    np.testing.assert_array_equal(got[rect], want[rect])
-
-
-@pytest.mark.parametrize("paths", [4, 8])
-def test_pallas_sgm_rect_bounds_matches_masked_golden(paths):
-    """Traced frame bounds == golden rectangular valid mask, inside the rect.
-
-    The tiled-halo pipeline (parallel/tiling.py) only ever produces
-    rectangular masks; carries must fresh-start at the rectangle's edges
-    exactly like the golden masked recurrence. Outside the rectangle the
-    kernel holds garbage by design (the caller crops), so the comparison
-    is restricted to the in-frame region.
-    """
-    import jax.numpy as jnp
-
-    from stereo_tpu.ops.pallas.sgm_kernel import frame_bounds
-
-    rng = np.random.default_rng(paths + 10)
-    h, w, d = 24, 40, 16
-    cost = rng.integers(0, 25, size=(h, w, d)).astype(np.int32)
-    cfg = StereoConfig(num_paths=paths, p1=3, p2=20)
-
-    # Tile sits at global (y0, x0) = (-5, -7) of a 30 x 60 frame: the top
-    # and left strips are out-of-frame, and the frame's bottom edge cuts
-    # through the tile (y_hi = 30 - (-5) = 35 > h -> clipped; use an
-    # interior cut instead via image_height).
-    y0, x0, ih, iw = -5, -7, 17, 29
-    b = frame_bounds(h, w, x_offset=x0, y_offset=y0,
-                     image_width=iw, image_height=ih)
-    got = np.array(sgm_aggregate_pallas(cost, cfg, interpret=True, bounds=b))
-
-    ys = y0 + np.arange(h)[:, None]
-    xs = x0 + np.arange(w)[None, :]
-    rect = (ys >= 0) & (ys < ih) & (xs >= 0) & (xs < iw)
-    want = np.array(
-        sgm_aggregate(cost, cfg, valid=jnp.asarray(rect))
-    )
-    np.testing.assert_array_equal(got[rect], want[rect])
-
-
-@pytest.mark.parametrize("paths", [4, 8])
-def test_pallas_sgm_adaptive_p2_lane_packed(paths):
-    """Adaptive P2 on the lane-packed small-D path (VERDICT r2 #8): the
-    pre-packed per-lane effective-P2 maps (_pack_map_lanes) through BOTH
-    packed pass families must stay bit-exact vs the golden adaptive
-    recurrence. h, w, d chosen so hp // G >= 32 sublanes, which turns on
-    horizontal-family packing too."""
-    from stereo_tpu.ops.pallas import sgm_kernel as sk
-
-    rng = np.random.default_rng(paths + 40)
-    h, w, d = 260, 150, 16
-    G = 128 // d
-    br, hp, _, wp = sk.plan_dims(h, w, d)
-    assert wp % (8 * G) == 0 and hp % (8 * G) == 0 and hp // G >= 32, \
-        "shape must take the packed path in BOTH pass families"
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    img = rng.integers(0, 255, size=(h, w)).astype(np.uint8)
-    cfg = StereoConfig(
-        num_disparities=d, num_paths=paths, p1=7, p2=100,
-        adaptive_p2=True, p2_min=17,
-    )
-    got = np.array(
-        sgm_aggregate_pallas(
-            cost.astype(np.int16), cfg, interpret=True,
-            acc_dtype=np.int16, image=img,
-        )
-    ).astype(np.int32)
-    want = np.array(sgm_aggregate(cost, cfg, image=img))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_fused_block_rows_respects_budget_and_divisibility():
-    """The fused v-up block must divide hp, stay a multiple of 8 (2-D
-    output tiling), and keep the S block under the ~6 MB budget whose
-    violation crashed the remote Mosaic helper at config-4 scale
-    (round 4)."""
-    from stereo_tpu.ops.pallas.sgm_kernel import (
-        _V_FUSED_BH,
-        _fused_block_rows,
-    )
-
-    # KITTI scale: the swept 16-row block survives the budget
-    assert _fused_block_rows(384, 1280, 128, 2) == _V_FUSED_BH
-    # config-4-like wide D=256 patches: must shrink to 8
-    bhf = _fused_block_rows(1988 + (8 - 1988 % 8) % 8, 1568, 256, 2)
-    assert bhf == 8
-    for hp, wp, d, isz in [(384, 1280, 128, 2), (1992, 1568, 256, 2),
-                           (24, 160, 16, 2), (17, 96, 16, 2)]:
-        bhf = _fused_block_rows(hp, wp, d, isz)
-        assert hp % bhf == 0
-        assert bhf == 1 or bhf % 8 == 0
-        if bhf > 8:
-            assert bhf * wp * d * max(isz, 2) <= (6 << 20)
-
-
-def test_pallas_sgm_h_ilp_split_matches_golden(monkeypatch):
-    """_H_ILP row-group split (round 5): the horizontal passes' row block
-    is cut into independent carry chains so the scheduler can interleave
-    the latency-bound serial x chains. Rows never interact in an h scan,
-    so every ilp must be BIT-identical to the golden recurrence — fixed
-    P2, adaptive CP-stream, and adaptive map-broadcast forms alike."""
-    import stereo_tpu.ops.pallas.sgm_kernel as sk
-
-    rng = np.random.default_rng(7)
-    h, w, d = 16, 80, 128  # d >= 128: the unrolled whd form ILP targets
-    cost = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
-    img = rng.integers(0, 255, size=(h, w)).astype(np.uint8)
-    fixed = StereoConfig(num_disparities=d, num_paths=8, p1=7, p2=100)
-    adap = fixed.replace(adaptive_p2=True, p2_min=17, adaptive_grad_floor=6)
-    want_fixed = np.array(sgm_aggregate(cost, fixed))
-    want_adap = np.array(sgm_aggregate(cost, adap, image=img))
-
-    monkeypatch.setattr(sk, "_H_ILP", 2)
-    got = np.array(sk.sgm_aggregate_pallas(
-        cost.astype(np.int16), fixed, interpret=True, acc_dtype=np.int16,
-    )).astype(np.int32)
-    np.testing.assert_array_equal(got, want_fixed)
-    for cp_h in (True, False):  # CP-stream and map-broadcast forms
-        monkeypatch.setattr(sk, "_ADAPTIVE_CP_H", cp_h)
-        got = np.array(sk.sgm_aggregate_pallas(
-            cost.astype(np.int16), adap, interpret=True,
-            acc_dtype=np.int16, image=img,
-        )).astype(np.int32)
-        np.testing.assert_array_equal(got, want_adap)
+    _check(cost_volume(left, right, cfg), cfg, image=left)

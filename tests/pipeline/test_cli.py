@@ -53,7 +53,7 @@ def test_cli_run_fill_occlusions(capsys):
 
 def test_cli_scale_harness(capsys):
     """cli scale on fake devices: rows are valid JSON with sane fields
-    (validates the instrument, not the hardware — VERDICT r2 #3)."""
+    (validates the instrument, not the hardware)."""
     rc = main([
         "scale", "--preset", "kitti_sgm8_128", *SMALL,
         "--demo-shape", "48", "80", "--devices", "1,2", "--iters", "2",
@@ -115,8 +115,8 @@ def _expected_metrics(pair, cfg):
 
 
 def test_cli_eval_kitti_tree_end_to_end(tmp_path, capsys):
-    """`cli eval --kitti <dir>` over a real-format on-disk tree (VERDICT
-    r3 #6): synthetic pair + GT written as KITTI uint8/uint16 PNGs, then
+    """`cli eval --kitti <dir>` over a real-format on-disk tree:
+    synthetic pair + GT written as KITTI uint8/uint16 PNGs, then
     the loader->pipeline->metrics path must reproduce the in-memory run
     (GT quantization is 1/256 px, far below the bad-3 threshold)."""
     from PIL import Image

@@ -1,4 +1,4 @@
-"""Locked regression gates on the HARD synthetic suite (VERDICT r2 #1).
+"""Locked regression gates on the HARD synthetic suite.
 
 The earlier rounds' quality gates ran only on clean warped pairs — easy
 enough that census matching is near-perfect and regressions hurting hard
@@ -24,7 +24,7 @@ SEEDS = (0, 1)
 
 # scenario -> (max bad3_noc, min density_noc); measured r4 with the TUNED
 # kitti_sgm8_128 preset (p1=14, p2=120, 9x7 census, uniqueness .02,
-# speckle 80 — VERDICT r3 #1; r5 moved presets to resolution-relative
+# speckle 80; r5 moved presets to resolution-relative
 # speckle_rel, effective 27 px at this CI scale — all gates still hold):
 # clean .0035/.983, radiometric .0049/.983,
 # noise .0073/.980, occlusion .0111/.969, textureless .0449/.796,
@@ -112,7 +112,7 @@ def test_quality_preset_fixes_thin_and_textureless():
     beat the headline preset exactly where fixed P2 cannot: thin
     structures (smoothness erases 2-4 px bars) and textureless flats.
     Measured r5 CI scale (presets now ship resolution-relative speckle,
-    VERDICT r4 #1 — effective size 27 px here, not 80): thin .0447/.917,
+    effective size 27 px here, not 80): thin .0447/.917,
     textureless .0329/.752."""
     cfg = PRESETS["kitti_sgm8_128_quality"].replace(num_disparities=16)
     rows = run_hard_suite(

@@ -67,48 +67,46 @@ def test_model_describe():
     assert d["model"] == "pyramid" and d["D"] == 32
 
 
-def test_pyramid_mxu_gather_matches_take_along_axis():
-    """The one-hot-matmul residual volume (TPU path) must be bit-identical
-    to the take_along_axis construction, including frame-edge clipping and
-    bases larger than x (index underflow) or near the right edge
-    (index overflow into the edge-padded strip)."""
+def test_pyramid_residual_volume_matches_bruteforce():
+    """The residual volume equals a per-pixel Hamming loop, including
+    frame-edge clipping and bases larger than x (index underflow)."""
     import jax.numpy as jnp
 
     from stereo_tpu.models.pyramid import _residual_cost_volume
     from stereo_tpu.ops import census_transform
 
     rng = np.random.default_rng(11)
-    h, w, r = 16, 64, 8
+    h, w, r = 6, 20, 8
     left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
     right = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
-    cl = census_transform(jnp.asarray(left), (7, 9))   # 62 bits -> 2 words
-    cr = census_transform(jnp.asarray(right), (7, 9))
-    # base >= 0 (the documented precondition; the model clamps)
-    base = rng.integers(0, 70, size=(h, w)).astype(np.int32)
-    gather = _residual_cost_volume(cl, cr, jnp.asarray(base), r // 2, r, False)
-    mxu = _residual_cost_volume(cl, cr, jnp.asarray(base), r // 2, r, True)
-    np.testing.assert_array_equal(np.array(gather), np.array(mxu))
+    cl = np.asarray(census_transform(jnp.asarray(left), (7, 9)))
+    cr = np.asarray(census_transform(jnp.asarray(right), (7, 9)))
+    base = rng.integers(0, 30, size=(h, w)).astype(np.int32)
+    got = np.asarray(
+        _residual_cost_volume(
+            jnp.asarray(cl), jnp.asarray(cr), jnp.asarray(base), r // 2, r
+        )
+    )
+    want = np.zeros((h, w, r), np.int32)
+    for y in range(h):
+        for x in range(w):
+            for o in range(r):
+                src = min(max(x - base[y, x] - (o - r // 2), 0), w - 1)
+                bits = np.bitwise_xor(cl[y, x], cr[y, src])
+                want[y, x, o] = sum(bin(int(b)).count("1") for b in bits)
+    np.testing.assert_array_equal(got, want)
 
 
-def test_pyramid_mxu_row_banding_bit_exact(monkeypatch):
-    """The banded one-hot einsum (ADVICE r1: bound the select operand) must
-    stay bit-identical when the budget forces multiple bands, including a
-    ragged final band (h not a band multiple)."""
-    import jax.numpy as jnp
-
-    from stereo_tpu.models import pyramid
-    from stereo_tpu.ops import census_transform
-
-    rng = np.random.default_rng(12)
-    h, w, r = 13, 48, 8
-    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
-    right = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
-    cl = census_transform(jnp.asarray(left), (5, 5))
-    cr = census_transform(jnp.asarray(right), (5, 5))
-    base = jnp.asarray(rng.integers(0, 50, size=(h, w)).astype(np.int32))
-    gather = pyramid._residual_cost_volume(cl, cr, base, r // 2, r, False)
-    # w=48 pads to wpp=128: 48*128*2 B/row; 4 rows/band -> 4 bands, last
-    # band ragged (13 = 3*4 + 1).
-    monkeypatch.setattr(pyramid, "_ONEHOT_BUDGET_BYTES", 4 * 48 * 128 * 2)
-    mxu = pyramid._residual_cost_volume(cl, cr, base, r // 2, r, True)
-    np.testing.assert_array_equal(np.array(gather), np.array(mxu))
+def test_pyramid_kernel_matches_golden():
+    """The pyramid's coarse and residual aggregations through the SGM
+    kernel (interpret mode) are bit-identical to the golden scan."""
+    pair = make_pair((24, 48), max_disp=10, kind="shapes", seed=4)
+    cfg = StereoConfig(cost_fn="census", num_disparities=16, num_paths=8)
+    outs = [
+        get_model("pyramid", cfg=cfg.replace(backend=b)).build()(
+            pair.left, pair.right
+        )
+        for b in ("jnp", "pallas_interpret")
+    ]
+    np.testing.assert_array_equal(np.array(outs[0].disp), np.array(outs[1].disp))
+    np.testing.assert_array_equal(np.array(outs[0].valid), np.array(outs[1].valid))

@@ -141,10 +141,10 @@ def test_pipeline_is_jittable_and_cached():
 @pytest.mark.parametrize(
     "cfg",
     [
-        # config-1 shape: SAD + WTA-only rides the Pallas cost kernel
+        # config-1 shape: SAD + WTA-only (no SGM, so no kernel)
         StereoConfig(cost_fn="sad", sad_window=(9, 9), num_disparities=16,
                      num_paths=0, subpixel=False),
-        # SAD and rank through the fused Pallas SGM fast path
+        # SAD and rank costs through the SGM kernel
         StereoConfig(cost_fn="sad", sad_window=(5, 5), num_disparities=16,
                      num_paths=8),
         StereoConfig(cost_fn="rank", census_window=(5, 5),
@@ -153,8 +153,24 @@ def test_pipeline_is_jittable_and_cached():
     ids=["sad-wta", "sad-sgm8", "rank-sgm4"],
 )
 def test_sad_rank_pallas_paths_bit_identical(cfg):
-    """Every cost_fn's Pallas path matches the golden pipeline bit-exactly."""
+    """Every cost_fn through the SGM kernel matches the golden pipeline
+    bit-exactly."""
     pair = make_pair((32, 64), max_disp=8, kind="shapes", seed=11)
+    g = build_pipeline(cfg.replace(backend="jnp"))(pair.left, pair.right)
+    p = build_pipeline(cfg.replace(backend="pallas_interpret"))(
+        pair.left, pair.right
+    )
+    np.testing.assert_array_equal(np.array(g.disp), np.array(p.disp))
+    np.testing.assert_array_equal(np.array(g.valid), np.array(p.valid))
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_presets_kernel_bit_identical(preset):
+    """Each preset's full pipeline (its cost, paths, P2 rule, uniqueness,
+    subpixel and LR check) through the SGM kernel matches the golden scan
+    bit-exactly on a small pair."""
+    pair = make_pair((16, 40), max_disp=8, kind="shapes", seed=5)
+    cfg = PRESETS[preset]
     g = build_pipeline(cfg.replace(backend="jnp"))(pair.left, pair.right)
     p = build_pipeline(cfg.replace(backend="pallas_interpret"))(
         pair.left, pair.right
