@@ -1,0 +1,6 @@
+"""SGM: least time of its compulsory work (counts.py) over its device
+time, in percent."""
+
+
+def read(view):
+    return view.roofline_pct("sgm")
